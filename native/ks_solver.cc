@@ -8,7 +8,7 @@
 // the caller).  Double precision, periodic domain.
 //
 // Exposed through a C ABI (ctypes); see pdecontrol_tpu/utils/native.py.
-// Used as (a) an independent golden oracle for the TPU solver and (b) the
+// Used as (a) an independent golden oracle for the JAX solver and (b) the
 // single-core host baseline in bench.py's secondary report.
 
 #include <cmath>

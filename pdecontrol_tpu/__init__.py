@@ -1,6 +1,6 @@
-"""pdecontrol_tpu — TPU-native model-based PDE control framework.
+"""pdecontrol_tpu — model-based PDE control in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 ``stwerner97/model-based-pde-control`` (ECC'24): batched PDE control
 environments (Kuramoto–Sivashinsky, Burgers), learned neural PDE surrogate
 ensembles, Soft Actor-Critic, and an MBPO-style model-based RL loop — all as

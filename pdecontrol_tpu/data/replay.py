@@ -26,14 +26,14 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from pdecontrol_tpu.data.types import Sample
+from pdecontrol_tpu.utils.pytree import PyTreeNode
 
 Array = jax.Array
 
 
-class ReplayState(struct.PyTreeNode):
+class ReplayState(PyTreeNode):
     obs_seq: Array  # [E, T+1, C, H]
     actions: Array  # [E, T, Ca, A]
     rewards: Array  # [E, T]

@@ -1,7 +1,7 @@
 """Core data pytrees (reference: ``/root/reference/pdecontrol/mbrl/types.py``).
 
 ``Sample`` holds a (possibly batched / time-majored) transition record;
-``ModelRollout`` holds surrogate rollout products.  Both are flax pytrees so
+``ModelRollout`` holds surrogate rollout products.  Both are pytrees so
 they move through ``jit``/``scan``/``shard_map`` and device placement freely —
 the reference's ``totorch``/``tonumpy`` conversions disappear.
 """
@@ -11,12 +11,13 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import jax
-from flax import struct
+
+from pdecontrol_tpu.utils.pytree import PyTreeNode
 
 Array = jax.Array
 
 
-class Sample(struct.PyTreeNode):
+class Sample(PyTreeNode):
     obs: Array = None
     actions: Array = None
     nxtobs: Array = None
@@ -42,7 +43,7 @@ class Sample(struct.PyTreeNode):
         )
 
 
-class ModelRollout(struct.PyTreeNode):
+class ModelRollout(PyTreeNode):
     """Surrogate rollout products (reference types.py:73-82)."""
 
     outputs: Array = None  # predicted states [B, T, C, H]
@@ -52,7 +53,7 @@ class ModelRollout(struct.PyTreeNode):
     hidden: Any = None  # transition-model carry
 
 
-class TrainBatch(struct.PyTreeNode):
+class TrainBatch(PyTreeNode):
     """Fixed-shape windowed training batch with a validity mask along time."""
 
     sample: Sample = None

@@ -19,7 +19,6 @@ from typing import Dict, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from pdecontrol_tpu.envs.kuramoto import EnvState, StepOut
 from pdecontrol_tpu.envs.transforms import GaussianForcing
@@ -30,26 +29,27 @@ from pdecontrol_tpu.ops.burgers import (
     burgers_control_period,
     burgers_reward,
 )
+from pdecontrol_tpu.utils.pytree import PyTreeNode, field
 
 Array = jax.Array
 
 
-class Burgers(struct.PyTreeNode):
+class Burgers(PyTreeNode):
     ops: BurgersOperators
     forcing: GaussianForcing
-    length: float = struct.field(pytree_node=False, default=16.0)
-    n: int = struct.field(pytree_node=False, default=64)
-    nu: float = struct.field(pytree_node=False, default=0.25)
-    cfg_steps: int = struct.field(pytree_node=False, default=250)
-    t_max: float = struct.field(pytree_node=False, default=100.0)
-    dt: float = struct.field(pytree_node=False, default=1e-3)
-    sigma: float = struct.field(pytree_node=False, default=0.4)
-    objective: str = struct.field(pytree_node=False, default="dissipation")
-    legacy_objective: bool = struct.field(pytree_node=False, default=True)
-    xi_rel: Tuple[float, ...] = struct.field(
-        pytree_node=False, default=(0.0, 0.25, 0.5, 0.75)
+    length: float = field(static=True, default=16.0)
+    n: int = field(static=True, default=64)
+    nu: float = field(static=True, default=0.25)
+    cfg_steps: int = field(static=True, default=250)
+    t_max: float = field(static=True, default=100.0)
+    dt: float = field(static=True, default=1e-3)
+    sigma: float = field(static=True, default=0.4)
+    objective: str = field(static=True, default="dissipation")
+    legacy_objective: bool = field(static=True, default=True)
+    xi_rel: Tuple[float, ...] = field(
+        static=True, default=(0.0, 0.25, 0.5, 0.75)
     )
-    ic_modes: int = struct.field(pytree_node=False, default=4)
+    ic_modes: int = field(static=True, default=4)
 
     @classmethod
     def create(

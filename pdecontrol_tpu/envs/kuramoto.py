@@ -31,7 +31,6 @@ from typing import Dict, NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from pdecontrol_tpu.envs.transforms import GaussianForcing
 from pdecontrol_tpu.ops.kuramoto import (
@@ -42,11 +41,12 @@ from pdecontrol_tpu.ops.kuramoto import (
     ks_reward,
     ks_transient,
 )
+from pdecontrol_tpu.utils.pytree import PyTreeNode, field
 
 Array = jax.Array
 
 
-class EnvState(struct.PyTreeNode):
+class EnvState(PyTreeNode):
     """Per-environment simulator state; all fields have a leading batch shape."""
 
     u: Array  # [..., N] physical field
@@ -62,36 +62,26 @@ class StepOut(NamedTuple):
     info: Dict[str, Array]
 
 
-class KuramotoSivashinsky(struct.PyTreeNode):
+class KuramotoSivashinsky(PyTreeNode):
     """Immutable environment definition (parameters + precomputed operators)."""
 
     ops: KSOperators
     forcing: GaussianForcing
-    length: float = struct.field(pytree_node=False, default=22.0)
-    n: int = struct.field(pytree_node=False, default=64)
-    cfg_steps: int = struct.field(pytree_node=False, default=250)
-    t_trans: float = struct.field(pytree_node=False, default=40.0)
-    t_max: float = struct.field(pytree_node=False, default=100.0)
-    dt: float = struct.field(pytree_node=False, default=1e-3)
-    noise: float = struct.field(pytree_node=False, default=0.1)
-    sigma: float = struct.field(pytree_node=False, default=0.4)
-    lmbda: float = struct.field(pytree_node=False, default=0.0)
-    objective: str = struct.field(pytree_node=False, default="dissipation")
-    legacy_objective: bool = struct.field(pytree_node=False, default=True)
-    xi_rel: Tuple[float, ...] = struct.field(
-        pytree_node=False, default=(0.0, 0.25, 0.5, 0.75)
+    length: float = field(static=True, default=22.0)
+    n: int = field(static=True, default=64)
+    cfg_steps: int = field(static=True, default=250)
+    t_trans: float = field(static=True, default=40.0)
+    t_max: float = field(static=True, default=100.0)
+    dt: float = field(static=True, default=1e-3)
+    noise: float = field(static=True, default=0.1)
+    sigma: float = field(static=True, default=0.4)
+    lmbda: float = field(static=True, default=0.0)
+    objective: str = field(static=True, default="dissipation")
+    legacy_objective: bool = field(static=True, default=True)
+    xi_rel: Tuple[float, ...] = field(
+        static=True, default=(0.0, 0.25, 0.5, 0.75)
     )
-    transient_time: float = struct.field(pytree_node=False, default=200.0)
-    # Solver backend for the control-period hot loop (the 250-sub-step RK4
-    # integration).  "xla" = lax.scan of circulant matmuls; "pallas" = fused
-    # VMEM-resident kernel (ops/pallas_ks.py); "pallas_packed" = lane-packed
-    # fused kernel (ops/pallas_ks_packed.py, 2 env rows per 128-lane
-    # register).  All three are numerically equivalent at fp32 round-off
-    # with pallas_precision="highest" (tests/test_env_solvers.py).
-    solver: str = struct.field(pytree_node=False, default="xla")
-    pallas_precision: str = struct.field(pytree_node=False, default="highest")
-    pallas_block: int = struct.field(pytree_node=False, default=1024)
-    pallas_interpret: bool = struct.field(pytree_node=False, default=False)
+    transient_time: float = field(static=True, default=200.0)
 
     @classmethod
     def create(
@@ -109,15 +99,7 @@ class KuramotoSivashinsky(struct.PyTreeNode):
         legacy_objective: bool = True,
         dtype=jnp.float32,
         precision: jax.lax.Precision = jax.lax.Precision.HIGHEST,
-        solver: str = "xla",
-        pallas_precision: str = "highest",
-        pallas_block: int = 1024,
-        pallas_interpret: bool = False,
     ) -> "KuramotoSivashinsky":
-        if solver not in ("xla", "pallas", "pallas_packed"):
-            raise ValueError(f"unknown solver {solver!r}")
-        if solver != "xla" and jnp.dtype(dtype) != jnp.float32:
-            raise ValueError("pallas solvers are float32-only")
         xi_rel = (0.0, 0.25, 0.5, 0.75)
         return cls(
             ops=KSOperators.create(n, length, dtype=dtype, precision=precision),
@@ -134,10 +116,6 @@ class KuramotoSivashinsky(struct.PyTreeNode):
             objective=objective,
             legacy_objective=legacy_objective,
             xi_rel=xi_rel,
-            solver=solver,
-            pallas_precision=pallas_precision,
-            pallas_block=pallas_block,
-            pallas_interpret=pallas_interpret,
         )
 
     # ------------------------------------------------------------------ meta
@@ -256,54 +234,16 @@ class KuramotoSivashinsky(struct.PyTreeNode):
     def observe(self, state: EnvState) -> Array:
         return state.u[..., None, :]
 
-    def _control_period(self, u: Array, phi: Array) -> Tuple[Array, Array]:
-        """Advance one control period through the configured solver backend.
-
-        The pallas kernels need a flat ``[B, N]`` batch; any leading batch
-        shape (including none) is flattened through and restored, so the
-        dispatch is transparent to callers.  The lane-packed kernel requires
-        an even flat batch and falls back to the general fused kernel for odd
-        batches (a trace-time, shape-static decision).
-        """
-        if self.solver == "xla":
-            return ks_control_period(
-                self.ops, u, phi, self.dt, self.cfg_steps,
-                self.effective_objective,
-            )
-        batch_shape = u.shape[:-1]
-        u2 = u.reshape(-1, self.n)
-        phi2 = jnp.broadcast_to(phi, u.shape).reshape(-1, self.n)
-        solver = self.solver
-        if solver == "pallas_packed" and u2.shape[0] % 2:
-            solver = "pallas"
-        if solver == "pallas_packed":
-            from pdecontrol_tpu.ops.pallas_ks_packed import (
-                ks_control_period_packed,
-            )
-
-            u2, r2 = ks_control_period_packed(
-                self.ops, u2, phi2, self.dt, self.cfg_steps,
-                self.effective_objective, block=self.pallas_block,
-                precision=self.pallas_precision,
-                interpret=self.pallas_interpret,
-            )
-        else:
-            from pdecontrol_tpu.ops.pallas_ks import ks_control_period_pallas
-
-            u2, r2 = ks_control_period_pallas(
-                self.ops, u2, phi2, self.dt, self.cfg_steps,
-                self.effective_objective, block=self.pallas_block,
-                interpret=self.pallas_interpret,
-            )
-        return u2.reshape(u.shape), r2.reshape(batch_shape)
-
     def step(self, state: EnvState, action: Array) -> Tuple[EnvState, StepOut]:
         """One agent step = one control period (kuramoto.py:78-98).
 
         Truncation-only episodes; no auto-reset (see ``vec_step``).
         """
         phi = self.action_to_phi(action)
-        u, reward = self._control_period(state.u, phi)
+        u, reward = ks_control_period(
+            self.ops, state.u, phi, self.dt, self.cfg_steps,
+            self.effective_objective,
+        )
         step = state.step + 1
         truncated = step >= self.max_episode_steps
         state = state.replace(u=u, step=step)
@@ -324,7 +264,7 @@ class KuramotoSivashinsky(struct.PyTreeNode):
         For sub-envs that truncate, the returned ``obs`` is the first
         observation of a fresh episode (drawn from ``pool``) and the true
         terminal observation is surfaced as ``info["final_obs"]`` — the
-        TPU-native equivalent of gym's ``final_observation`` handling that
+        batched equivalent of gym's ``final_observation`` handling that
         the reference's ``StoreNObsVecWrapper`` re-extracts
         (pdegym/common/vec_wrappers.py:21-37).
         """

@@ -2,7 +2,7 @@
 
 Re-designs the reference's mutable ``Transform`` algebra
 (``/root/reference/pdegym/common/transforms.py``) for JAX: every transform is
-a ``flax.struct`` pytree carrying its running statistics as arrays, and
+a frozen-dataclass pytree carrying its running statistics as arrays, and
 
   * ``t.apply(x)``      — forward map (reference ``__call__``),
   * ``t.inverse(x)``    — exact inverse (reference ``.Inverse.__call__``),
@@ -28,7 +28,8 @@ from typing import Any, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from pdecontrol_tpu.utils.pytree import PyTreeNode, field
 
 Array = jax.Array
 
@@ -46,7 +47,7 @@ def _reduced_shape(shape: Sequence[int], axes: Tuple[int, ...]) -> Tuple[int, ..
     return tuple(1 if i in axes else s for i, s in enumerate(shape))
 
 
-class Transform(struct.PyTreeNode):
+class Transform(PyTreeNode):
     """Base: identity with no state."""
 
     def apply(self, values: Array) -> Array:
@@ -104,10 +105,10 @@ class Normalize(Transform):
     mean: Array = None
     var: Array = None
     count: Array = None
-    aggregate: bool = struct.field(pytree_node=False, default=False)
-    batched: bool = struct.field(pytree_node=False, default=False)
-    frozen: bool = struct.field(pytree_node=False, default=False)
-    epsilon: float = struct.field(pytree_node=False, default=1e-4)
+    aggregate: bool = field(static=True, default=False)
+    batched: bool = field(static=True, default=False)
+    frozen: bool = field(static=True, default=False)
+    epsilon: float = field(static=True, default=1e-4)
 
     @classmethod
     def create(
@@ -172,9 +173,9 @@ class Scale(Transform):
     vmax: Array = None
     lower: Array = None
     upper: Array = None
-    aggregate: bool = struct.field(pytree_node=False, default=False)
-    batched: bool = struct.field(pytree_node=False, default=False)
-    frozen: bool = struct.field(pytree_node=False, default=False)
+    aggregate: bool = field(static=True, default=False)
+    batched: bool = field(static=True, default=False)
+    frozen: bool = field(static=True, default=False)
 
     @classmethod
     def create(
@@ -235,7 +236,7 @@ class Sensor(Transform):
     """Strided spatial subsampling (transforms.py:231-247).  Invertible only
     for stride 1 (identity), matching the reference."""
 
-    stride: int = struct.field(pytree_node=False, default=1)
+    stride: int = field(static=True, default=1)
 
     def apply(self, values: Array) -> Array:
         return values[..., self.stride // 2 :: self.stride]
@@ -330,8 +331,8 @@ class FuncTransform(Transform):
     """Wraps a pure function pair (reference ``FuncTransform``,
     transforms.py:213-228).  Stateless; stored as static fields."""
 
-    fn: Any = struct.field(pytree_node=False, default=None)
-    inv_fn: Any = struct.field(pytree_node=False, default=None)
+    fn: Any = field(static=True, default=None)
+    inv_fn: Any = field(static=True, default=None)
 
     def apply(self, *args):
         return self.fn(*args)
@@ -342,7 +343,7 @@ class FuncTransform(Transform):
         return self.inv_fn(*args)
 
 
-class SampleTransform(struct.PyTreeNode):
+class SampleTransform(PyTreeNode):
     """Applies an obs-chain to obs/nxtobs and an action-chain to actions of a
     ``Sample`` pytree (reference transforms.py:344-374)."""
 

@@ -1,25 +1,25 @@
-"""Attractor-statistics fidelity gate for the bf16-limb fast solver modes.
+"""Attractor-statistics fidelity gate for reduced-precision KS solvers.
 
-The ``pallas_packed`` solver's bfloat16-limb precisions trade matmul passes
-for speed (``bf16`` 1 pass < ``bf16_3x`` 3 < ``bf16_4x`` 4 < ``highest`` 6)
-and carry growing per-period error.  On a chaotic attractor trajectories
+A solver that computes in fewer bits than fp32 (TF32, 3xTF32, bf16 limbs)
+carries growing per-period error.  On a chaotic attractor trajectories
 decorrelate no matter the precision, so the meaningful fidelity statement is
 STATISTICAL: long-run attractor statistics must match full-precision ones.
-This gate runs both solvers through the product env API
-(``KuramotoSivashinsky.step``) for ``--periods`` control periods (after a
-discarded transient) on a ``--batch``-wide ensemble and compares
+This gate runs a candidate control-period solver (any function with the
+signature of ``ops.kuramoto.ks_control_period``) and the plain fp32 XLA
+reference for ``--periods`` control periods (after a discarded transient) on
+a ``--batch``-wide ensemble and compares
 
 - mean energy            ``E = <u^2>``
 - mean dissipation terms ``<u_x^2>``, ``<u_xx^2>`` (the reward's fields)
-- the energy spectrum    ``<|rfft(u)|^2>`` over resolved wavenumbers
+- the energy spectrum    ``<|rfft(u)|^2>`` over resolved wavenumbers.
 
-between the candidate precision (``--precision``) and the fp32 XLA solver.
 Exit status 0 = within tolerances; the verdict JSON goes to stdout and
-(with ``--output``) to disk.  RESULTS.md cites this gate for the fast-mode
-product claims; run it on the TPU chip, e.g.:
+(with ``--output``) to disk.  From the command line the candidate is named
+as ``module:function``; run it on the GPU, e.g.:
 
-    python -m pdecontrol_tpu.evaluation.bf16_gate --precision bf16_4x \
-        --output results/bf16_fidelity_4x.json
+    python -m pdecontrol_tpu.evaluation.bf16_gate \
+        --solver pdecontrol_tpu.ops.kuramoto:ks_control_period \
+        --output gate.json
 
 No reference counterpart (the reference integrates fp64 NumPy only,
 kuramoto.py:83-90); tolerances are set by the KS literature convention that
@@ -29,45 +29,46 @@ attractor means are reproducible to a few percent at these sample sizes.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import sys
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 
 
-def rollout_stats(env, key, batch: int, transient: int, periods: int) -> Dict:
-    """Free-attractor rollout through jitted ``env.step``; returns attractor
+def rollout_stats(env, key, batch: int, transient: int, periods: int,
+                  solver: Optional[Callable] = None) -> Dict:
+    """Unforced attractor rollout of ``env``'s physics through ``solver``
+    (default: the plain XLA ``ks_control_period``); returns attractor
     statistics over ``periods`` post-transient control periods."""
     import jax
     import jax.numpy as jnp
 
-    from pdecontrol_tpu.envs.kuramoto import EnvState
-    from pdecontrol_tpu.ops.kuramoto import ks_derivatives
+    from pdecontrol_tpu.ops.kuramoto import ks_control_period, ks_derivatives
 
+    solver = solver or ks_control_period
     ku, _ = jax.random.split(key)
-    state = EnvState(
-        u=jax.random.uniform(ku, (batch, env.n), minval=-1.0, maxval=1.0,
-                             dtype=jnp.float32),
-        step=jnp.zeros((batch,), jnp.int32),
-        key=key,
-    )
-    actions = jnp.zeros((batch, 1, env.num_jets), jnp.float32)
+    u0 = jax.random.uniform(ku, (batch, env.n), minval=-1.0, maxval=1.0,
+                            dtype=jnp.float32)
+    phi = jnp.zeros_like(u0)
+
+    def period(u):
+        return solver(env.ops, u, phi, env.dt, env.cfg_steps,
+                      env.effective_objective)[0]
 
     @jax.jit
-    def run(state):
-        def burn(st, _):
-            st, _ = env.step(st, actions)
-            return st, None
+    def run(u):
+        def burn(u, _):
+            return period(u), None
 
-        state, _ = jax.lax.scan(burn, state, None, length=transient)
+        u, _ = jax.lax.scan(burn, u, None, length=transient)
 
-        def collect(st, _):
-            st, _ = env.step(st, actions)
-            u = st.u
+        def collect(u, _):
+            u = period(u)
             u_x, u_xx, _ = ks_derivatives(env.ops, u)
             spec = jnp.abs(jnp.fft.rfft(u, axis=-1)) ** 2
-            return st, (
+            return u, (
                 jnp.mean(u * u),
                 jnp.mean(u_x * u_x),
                 jnp.mean(u_xx * u_xx),
@@ -75,12 +76,12 @@ def rollout_stats(env, key, batch: int, transient: int, periods: int) -> Dict:
             )
 
         _, (e, dx, dxx, spec) = jax.lax.scan(
-            collect, state, None, length=periods
+            collect, u, None, length=periods
         )
         return (jnp.mean(e), jnp.mean(dx), jnp.mean(dxx),
                 jnp.mean(spec, axis=0))
 
-    e, dx, dxx, spec = jax.device_get(run(state))
+    e, dx, dxx, spec = jax.device_get(run(u0))
     return {
         "mean_energy": float(e),
         "mean_ux2": float(dx),
@@ -89,19 +90,19 @@ def rollout_stats(env, key, batch: int, transient: int, periods: int) -> Dict:
     }
 
 
-def compare(fp32: Dict, bf16: Dict, rtol_means: float, rtol_spec: float) -> Dict:
+def compare(ref: Dict, cand: Dict, rtol_means: float, rtol_spec: float) -> Dict:
     """Relative-error comparison; the spectrum is compared bin-wise on
     wavenumbers carrying at least 1e-4 of the peak power (the dynamically
     relevant band — hyperviscous tail bins hold no energy and only noise)."""
     checks = {}
     for k in ("mean_energy", "mean_ux2", "mean_uxx2"):
-        rel = abs(bf16[k] - fp32[k]) / abs(fp32[k])
-        checks[k] = {"fp32": fp32[k], "fast": bf16[k],
+        rel = abs(cand[k] - ref[k]) / abs(ref[k])
+        checks[k] = {"reference": ref[k], "candidate": cand[k],
                      "rel_err": rel, "tol": rtol_means,
                      "ok": bool(rel <= rtol_means)}
-    s32, s16 = fp32["spectrum"], bf16["spectrum"]
-    band = s32 >= 1e-4 * s32.max()
-    rel = np.abs(s16[band] - s32[band]) / s32[band]
+    s_ref, s_cand = ref["spectrum"], cand["spectrum"]
+    band = s_ref >= 1e-4 * s_ref.max()
+    rel = np.abs(s_cand[band] - s_ref[band]) / s_ref[band]
     checks["spectrum"] = {
         "bins_compared": int(band.sum()),
         "max_rel_err": float(rel.max()),
@@ -113,30 +114,26 @@ def compare(fp32: Dict, bf16: Dict, rtol_means: float, rtol_spec: float) -> Dict
     return checks
 
 
-def run_gate(batch: int = 512, transient: int = 100, periods: int = 400,
-             rtol_means: float = 0.02, rtol_spec: float = 0.10,
-             seed: int = 0, precision: str = "bf16_4x") -> Dict:
+def run_gate(solver: Callable, batch: int = 512, transient: int = 100,
+             periods: int = 400, rtol_means: float = 0.02,
+             rtol_spec: float = 0.10, seed: int = 0, env=None) -> Dict:
+    """Compare ``solver``'s attractor statistics with the plain fp32 XLA
+    solver's on the default KS env (or ``env``)."""
     import jax
     import jax.numpy as jnp
 
     from pdecontrol_tpu.envs.kuramoto import KuramotoSivashinsky
 
+    env = env or KuramotoSivashinsky.create(dtype=jnp.float32)
     key = jax.random.PRNGKey(seed)
-    envs = {
-        "fp32": KuramotoSivashinsky.create(dtype=jnp.float32, solver="xla"),
-        "fast": KuramotoSivashinsky.create(
-            dtype=jnp.float32, solver="pallas_packed",
-            pallas_precision=precision,
-        ),
-    }
-    stats = {
-        name: rollout_stats(env, key, batch, transient, periods)
-        for name, env in envs.items()
-    }
-    verdict = compare(stats["fp32"], stats["fast"], rtol_means, rtol_spec)
+    ref = rollout_stats(env, key, batch, transient, periods)
+    cand = rollout_stats(env, key, batch, transient, periods, solver)
+    verdict = compare(ref, cand, rtol_means, rtol_spec)
     verdict["config"] = {
         "batch": batch, "transient_periods": transient, "periods": periods,
-        "total_agent_steps": batch * periods, "precision": precision,
+        "total_agent_steps": batch * periods,
+        "solver": getattr(solver, "__name__", repr(solver)),
+        "device": jax.devices()[0].device_kind,
     }
     return verdict
 
@@ -149,14 +146,15 @@ def main(argv=None):
     p.add_argument("--rtol_means", type=float, default=0.02)
     p.add_argument("--rtol_spec", type=float, default=0.10)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--precision", type=str, default="bf16_4x",
-                   choices=("bf16", "bf16_3x", "bf16_4x"))
+    p.add_argument("--solver", type=str, required=True,
+                   help="candidate control-period solver, module:function")
     p.add_argument("--output", type=str, default=None)
     args = p.parse_args(argv)
 
-    verdict = run_gate(args.batch, args.transient, args.periods,
-                       args.rtol_means, args.rtol_spec, args.seed,
-                       args.precision)
+    module, name = args.solver.split(":")
+    solver = getattr(importlib.import_module(module), name)
+    verdict = run_gate(solver, args.batch, args.transient, args.periods,
+                       args.rtol_means, args.rtol_spec, args.seed)
     blob = json.dumps(verdict, indent=2)
     print(blob)
     if args.output:

@@ -28,6 +28,8 @@ from typing import Dict
 
 import numpy as np
 
+from pdecontrol_tpu.utils import runtime
+
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__)
@@ -57,8 +59,8 @@ def build_parser():
 def make_curriculum(curriculum_json: str, target_length: int):
     """Honor --curriculum when given (reference offline.sh grows the window
     25->50 over 100 epochs); the default is a constant window of
-    ``target_length`` — one compiled program per fold, the TPU-native
-    protocol choice (each distinct window length is a recompile)."""
+    ``target_length`` — one compiled program per fold (each distinct
+    window length is a recompile)."""
     from pdecontrol_tpu.train.schedulers import (
         ConstantLengthScheduler, Scheduler,
     )
@@ -239,6 +241,7 @@ def main(argv=None) -> int:
         import jax
 
         jax.config.update("jax_platforms", args.platform)
+    runtime.setup("evaluate")
 
     data = dict(np.load(args.data))
     episodes = data["obs"].shape[0]

@@ -20,6 +20,8 @@ import sys
 
 import numpy as np
 
+from pdecontrol_tpu.utils import runtime
+
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__)
@@ -87,6 +89,7 @@ def main(argv=None) -> int:
         import jax
 
         jax.config.update("jax_platforms", args.platform)
+    runtime.setup("generate")
     data = generate(args.env, args.episodes, json.loads(args.config), args.seed)
     np.savez_compressed(args.output, **data)
     print(f"wrote {args.output}: obs {data['obs'].shape}")

@@ -32,6 +32,7 @@ import traceback
 
 from pdecontrol_tpu.mbrl.config import MBPOConfig
 from pdecontrol_tpu.models.factories import REGISTRY
+from pdecontrol_tpu.utils import runtime
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -87,11 +88,6 @@ def build_parser() -> argparse.ArgumentParser:
     # Env & rollouts
     p.add_argument("--env_id", default="KuramotoSivashinskyEnv-v0")
     p.add_argument("--env_config", type=str, default="{}")
-    p.add_argument("--solver", type=str, default=None,
-                   choices=["xla", "pallas", "pallas_packed"],
-                   help="solver backend for the env hot loop (shorthand for "
-                        "env_config['solver']; KS only — pallas kernels keep "
-                        "the state VMEM-resident across the control period)")
     p.add_argument("--num_envs", "--cpus", dest="num_envs", type=int, default=10)
     p.add_argument("--gamma", type=float, default=0.99)
     p.add_argument("--capacity", type=int, default=1_000_000)
@@ -165,10 +161,7 @@ def config_from_args(args: argparse.Namespace) -> MBPOConfig:
         data_parallel=args.data_parallel,
         model_parallel=args.model_parallel,
         env_id=args.env_id,
-        env_config=(
-            {**json.loads(args.env_config), "solver": args.solver}
-            if args.solver else json.loads(args.env_config)
-        ),
+        env_config=json.loads(args.env_config),
         num_envs=args.num_envs,
         gamma=args.gamma,
         capacity=args.capacity,
@@ -225,6 +218,7 @@ def main(argv=None) -> int:
 
         distributed.initialize(args.coordinator_address, args.num_processes,
                                args.process_id)
+    runtime.setup("mbpo")
     config = config_from_args(args)
 
     from pdecontrol_tpu.mbrl.controller import PDEModelBasedController

@@ -19,7 +19,6 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from pdecontrol_tpu.envs.transforms import (
     Chain,
@@ -30,11 +29,12 @@ from pdecontrol_tpu.envs.transforms import (
     Sensor,
     Transform,
 )
+from pdecontrol_tpu.utils.pytree import PyTreeNode
 
 Array = jax.Array
 
 
-class ControllerTransforms(struct.PyTreeNode):
+class ControllerTransforms(PyTreeNode):
     oscaling: Scale
     ascaling: Transform  # inverse view: apply = [-1,1] -> env bounds
     forcing: GaussianForcing

@@ -28,7 +28,6 @@ from typing import Any, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from pdecontrol_tpu.data import replay as R
 from pdecontrol_tpu.mbrl.transform_sets import ControllerTransforms
@@ -38,11 +37,12 @@ from pdecontrol_tpu.models.surrogate import (
     ensemble_rollout,
     select_elites,
 )
+from pdecontrol_tpu.utils.pytree import PyTreeNode
 
 Array = jax.Array
 
 
-class WorldState(struct.PyTreeNode):
+class WorldState(PyTreeNode):
     obs: Array  # [B, C, H] last selected prediction (world space)
     hidden: Any  # per-member transition carries, leading axis M
     timesteps: Array  # [B] int32 env-step counter (starts at warmup offset)

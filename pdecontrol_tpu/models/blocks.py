@@ -1,4 +1,4 @@
-"""NN building blocks (flax.linen) for the PDE surrogates.
+"""NN building blocks for the PDE surrogates (plain JAX, ``models/nn.py``).
 
 Functional re-design of ``/root/reference/pdecontrol/surrogates/models/
 {cnn,fcnn}.py``: 1-D conv / deconv / NVAE-style residual blocks with
@@ -7,7 +7,7 @@ axis, and per-layer-configured ``ConvNet`` stacks.
 
 Layout: the public convention matches the reference — tensors are
 ``[B, C, H]`` (channel-first) at module boundaries; internally convs run in
-NWC (``[B, H, C]``), the TPU-preferred layout.
+NWC (``[B, H, C]``).
 """
 
 from __future__ import annotations
@@ -16,7 +16,9 @@ from typing import Any, Callable, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+
+from pdecontrol_tpu.models import nn
+from pdecontrol_tpu.models.nn import Scope
 
 Array = jax.Array
 
@@ -28,16 +30,19 @@ class SpatialLayerNorm(nn.Module):
 
     epsilon: float = 1e-5
 
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
+    def __call__(self, p: Scope, x: Array) -> Array:
         # Normalise over the spatial axis (-2 in NWC).
         mean = jnp.mean(x, axis=-2, keepdims=True)
         var = jnp.var(x, axis=-2, keepdims=True)
         y = (x - mean) * jax.lax.rsqrt(var + self.epsilon)
         h = x.shape[-2]
-        scale = self.param("scale", nn.initializers.ones, (h, 1), jnp.float32)
-        bias = self.param("bias", nn.initializers.zeros, (h, 1), jnp.float32)
+        scale = p.param("scale", nn.ones, (h, 1))
+        bias = p.param("bias", nn.zeros, (h, 1))
         return y * scale.astype(x.dtype) + bias.astype(x.dtype)
+
+
+def _norm(p: Scope, name: str, x: Array) -> Array:
+    return SpatialLayerNorm()(p.child(name), x)
 
 
 class ConvBlock(nn.Module):
@@ -48,21 +53,15 @@ class ConvBlock(nn.Module):
     kernel_size: int = 3
     stride: int = 1
     use_bias: bool = True
-    activation: Callable = nn.silu
+    activation: Callable = jax.nn.silu
     layernorm: bool = False
 
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
-        y = nn.Conv(
-            self.features,
-            (self.kernel_size,),
-            strides=(self.stride,),
-            padding="CIRCULAR",
-            use_bias=self.use_bias,
-        )(x)
+    def __call__(self, p: Scope, x: Array) -> Array:
+        y = nn.conv_circular(p.child("Conv_0"), x, self.features,
+                             self.kernel_size, self.stride, self.use_bias)
         y = self.activation(y)
         if self.layernorm:
-            y = SpatialLayerNorm()(y)
+            y = _norm(p, "SpatialLayerNorm_0", y)
         return y
 
 
@@ -74,21 +73,15 @@ class DeConvBlock(nn.Module):
     kernel_size: int = 3
     stride: int = 2
     use_bias: bool = True
-    activation: Callable = nn.silu
+    activation: Callable = jax.nn.silu
     layernorm: bool = False
 
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
-        y = nn.ConvTranspose(
-            self.features,
-            (self.kernel_size,),
-            strides=(self.stride,),
-            padding="SAME",
-            use_bias=self.use_bias,
-        )(x)
+    def __call__(self, p: Scope, x: Array) -> Array:
+        y = nn.conv_transpose(p.child("ConvTranspose_0"), x, self.features,
+                              self.kernel_size, self.stride, self.use_bias)
         y = self.activation(y)
         if self.layernorm:
-            y = SpatialLayerNorm()(y)
+            y = _norm(p, "SpatialLayerNorm_0", y)
         return y
 
 
@@ -101,35 +94,28 @@ class ResidualBlock(nn.Module):
     kernel_size: int = 3
     stride: int = 2
     use_bias: bool = False
-    activation: Callable = nn.silu
+    activation: Callable = jax.nn.silu
     layernorm: bool = False
 
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
-        identity = nn.Conv(
-            self.features, (1,), strides=(self.stride,), padding="CIRCULAR",
-            use_bias=self.use_bias, name="skip",
-        )(x)
+    def __call__(self, p: Scope, x: Array) -> Array:
+        identity = nn.conv_circular(p.child("skip"), x, self.features, 1,
+                                    self.stride, self.use_bias)
 
-        out = nn.Conv(
-            self.features, (self.kernel_size,), strides=(self.stride,),
-            padding="CIRCULAR", use_bias=self.use_bias, name="conv_l1",
-        )(x)
+        out = nn.conv_circular(p.child("conv_l1"), x, self.features,
+                               self.kernel_size, self.stride, self.use_bias)
         out = self.activation(out)
         if self.layernorm:
-            out = SpatialLayerNorm(name="norm_l1")(out)
+            out = _norm(p, "norm_l1", out)
 
-        out = nn.Conv(
-            self.features, (self.kernel_size,), strides=(1,),
-            padding="CIRCULAR", use_bias=self.use_bias, name="conv_l2",
-        )(out)
+        out = nn.conv_circular(p.child("conv_l2"), out, self.features,
+                               self.kernel_size, 1, self.use_bias)
         out = self.activation(out)
         if self.layernorm:
-            out = SpatialLayerNorm(name="norm_l2")(out)
+            out = _norm(p, "norm_l2", out)
 
         out = out + identity
         if self.layernorm:
-            out = SpatialLayerNorm(name="norm_skip")(out)
+            out = _norm(p, "norm_skip", out)
         return out
 
 
@@ -148,18 +134,18 @@ class ConvNet(nn.Module):
     def _get(self, seq, idx, default):
         return seq[idx] if idx < len(seq) else default
 
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
+    def __call__(self, p: Scope, x: Array) -> Array:
         x = jnp.swapaxes(x, -1, -2)  # -> NWC
         for i, block_cls in enumerate(self.blocks):
-            kwargs = dict(
+            block = block_cls(
                 features=self.features[i],
                 kernel_size=self._get(self.kernel_size, i, 3),
-                stride=self._get(self.stride, i, 1 if block_cls is ConvBlock else 2),
-                activation=self._get(self.activation, i, nn.silu),
+                stride=self._get(self.stride, i,
+                                 1 if block_cls is ConvBlock else 2),
+                activation=self._get(self.activation, i, jax.nn.silu),
                 layernorm=self._get(self.layernorm, i, False),
             )
-            x = block_cls(**kwargs, name=f"block_l{i}")(x)
+            x = block(p.child(f"block_l{i}"), x)
         return jnp.swapaxes(x, -1, -2)  # -> [B, C, H]
 
 
@@ -169,13 +155,12 @@ class LinearBlock(nn.Module):
 
     out_channels: int
     out_size: int
-    activation: Callable = nn.silu
+    activation: Callable = jax.nn.silu
 
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
+    def __call__(self, p: Scope, x: Array) -> Array:
         b = x.shape[0]
-        y = x.reshape(b, -1)
-        y = nn.Dense(self.out_channels * self.out_size)(y)
+        y = nn.dense(p.child("Dense_0"), x.reshape(b, -1),
+                     self.out_channels * self.out_size)
         y = self.activation(y)
         return y.reshape(b, self.out_channels, self.out_size)
 
@@ -186,23 +171,21 @@ class MLP(nn.Module):
     sizes: Sequence[Tuple[int, int]]  # per layer: (out_channels, out_size)
     activations: Sequence[Callable]
 
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
+    def __call__(self, p: Scope, x: Array) -> Array:
         for i, ((c, h), act) in enumerate(zip(self.sizes, self.activations)):
-            x = LinearBlock(c, h, act, name=f"linear_l{i}")(x)
+            x = LinearBlock(c, h, act)(p.child(f"linear_l{i}"), x)
         return x
 
 
 class IdentityModule(nn.Module):
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
+    def __call__(self, p: Scope, x: Array) -> Array:
         return x
 
 
-def batched_apply(module: nn.Module, x: Array) -> Array:
+def batched_apply(module: nn.Module, p: Scope, x: Array) -> Array:
     """Fold time into batch for per-frame modules (reference
     ``BatchingWrapper``, surrogates/utils.py:35-47): [B, T, C, H] -> module
     over [B*T, C, H] -> [B, T, C', H']."""
     b, t = x.shape[:2]
-    y = module(x.reshape((b * t,) + x.shape[2:]))
+    y = module(p, x.reshape((b * t,) + x.shape[2:]))
     return y.reshape((b, t) + y.shape[1:])

@@ -13,7 +13,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable, Dict
 
-from flax import linen as nn
+import jax
+import jax.numpy as jnp
 
 from pdecontrol_tpu.models import blocks as B
 from pdecontrol_tpu.models import transition as Tr
@@ -63,7 +64,7 @@ def _conv_lstm_parts(N: int = 64, **_):
         features=[8, 16, 16],
         kernel_size=[3, 3, 3],
         stride=[2, 2, 1],
-        activation=[nn.silu] * 3,
+        activation=[jax.nn.silu] * 3,
         layernorm=[True] * 3,
     )
     action_encoder = B.ConvNet(
@@ -71,7 +72,7 @@ def _conv_lstm_parts(N: int = 64, **_):
         features=[2, 4, 4],
         kernel_size=[3, 3, 3],
         stride=[2, 2, 1],
-        activation=[nn.silu] * 3,
+        activation=[jax.nn.silu] * 3,
         layernorm=[True] * 3,
     )
     state_decoder = B.ConvNet(
@@ -79,7 +80,7 @@ def _conv_lstm_parts(N: int = 64, **_):
         features=[16, 8, 1, 1],
         kernel_size=[3, 3, 7, 5],
         stride=[2, 2, 1, 1],
-        activation=[nn.silu, nn.silu, nn.silu, lambda x: x],
+        activation=[jax.nn.silu, jax.nn.silu, jax.nn.silu, lambda x: x],
         layernorm=[True, True, True, False],
     )
     cell = Tr.CNNLSTMCell(schannels=16, ssize=lat)
@@ -109,8 +110,8 @@ def ks_latent_conv_lstm(delta: float, N: int = 64, **kwargs) -> PDESurrogate:
 @register("KSAutoRegFullyConnectedLSTM")
 def ks_autoreg_fc_lstm(delta: float, N: int = 64, **kwargs) -> PDESurrogate:
     """Spatial/temporal locality ablation (architectures/autoreg.py:10-41)."""
-    enc = B.MLP(sizes=[(1, N // 2), (1, N // 4)], activations=[nn.silu, nn.silu])
-    dec = B.MLP(sizes=[(1, N // 2), (1, N)], activations=[nn.silu, nn.tanh])
+    enc = B.MLP(sizes=[(1, N // 2), (1, N // 4)], activations=[jax.nn.silu, jax.nn.silu])
+    dec = B.MLP(sizes=[(1, N // 2), (1, N)], activations=[jax.nn.silu, jnp.tanh])
     return PDESurrogate(
         state_encoder=enc, state_decoder=dec, action_encoder=B.IdentityModule(),
         cell=Tr.LSTMCell(schannels=1, ssize=N // 4), delta=delta, mode=AUTOREG,
@@ -120,8 +121,8 @@ def ks_autoreg_fc_lstm(delta: float, N: int = 64, **kwargs) -> PDESurrogate:
 @register("KSLatentLSTM")
 def ks_latent_lstm(delta: float, N: int = 64, **kwargs) -> PDESurrogate:
     """Fully-connected LSTM baseline (architectures/latent.py:70-101)."""
-    enc = B.MLP(sizes=[(1, N // 2), (1, N // 4)], activations=[nn.elu, nn.elu])
-    dec = B.MLP(sizes=[(1, N // 2), (1, N)], activations=[nn.elu, lambda x: x])
+    enc = B.MLP(sizes=[(1, N // 2), (1, N // 4)], activations=[jax.nn.elu, jax.nn.elu])
+    dec = B.MLP(sizes=[(1, N // 2), (1, N)], activations=[jax.nn.elu, lambda x: x])
     return PDESurrogate(
         state_encoder=enc, state_decoder=dec, action_encoder=B.IdentityModule(),
         cell=Tr.LSTMCell(schannels=1, ssize=N // 4), delta=delta, mode=LATENT,
@@ -137,7 +138,7 @@ def ks_delay_cnn(delta: float, N: int = 64, delay: int = 3, **kwargs) -> PDESurr
         features=[1, 4, 8],
         kernel_size=[3, 3, 3],
         stride=[2, 2, 2],
-        activation=[nn.elu, nn.elu, nn.tanh],
+        activation=[jax.nn.elu, jax.nn.elu, jnp.tanh],
         layernorm=[True, True, False],
     )
     dec = B.ConvNet(
@@ -145,13 +146,13 @@ def ks_delay_cnn(delta: float, N: int = 64, delay: int = 3, **kwargs) -> PDESurr
         features=[8, 4, 1, 1],
         kernel_size=[3, 3, 3, 5],
         stride=[2, 2, 2, 1],
-        activation=[nn.elu, nn.elu, nn.elu, nn.tanh],
+        activation=[jax.nn.elu, jax.nn.elu, jax.nn.elu, jnp.tanh],
         layernorm=[True, True, False, False],
     )
-    aenc = B.MLP(sizes=[(4, 4), (4, lat)], activations=[nn.elu, nn.tanh])
+    aenc = B.MLP(sizes=[(4, 4), (4, lat)], activations=[jax.nn.elu, jnp.tanh])
     fwd = B.MLP(
         sizes=[(12, lat), (8, lat), (8, lat)],
-        activations=[nn.elu, nn.elu, nn.tanh],
+        activations=[jax.nn.elu, jax.nn.elu, jnp.tanh],
     )
     cell = Tr.DelayCell(
         schannels=8, ssize=lat, achannels=4, asize=lat, delay=delay, fwd=fwd

@@ -34,18 +34,30 @@ from typing import Any, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
-from flax import struct
 
 from pdecontrol_tpu.data.types import ModelRollout
 from pdecontrol_tpu.envs.transforms import Identity, Transform
+from pdecontrol_tpu.models import nn
 from pdecontrol_tpu.models.blocks import batched_apply
+from pdecontrol_tpu.models.nn import Scope
 from pdecontrol_tpu.models.transition import TransitionCell
+from pdecontrol_tpu.utils.pytree import PyTreeNode, field
 
 Array = jax.Array
 
 AUTOREG = "autoreg"
 LATENT = "latent"
+
+
+def _scan(p: Scope, step, carry, xs):
+    """``lax.scan`` of ``step`` over axis 1 of ``xs`` (batch-major in and
+    out).  While initialising, one unscanned step first creates the
+    parameters, so none is created inside the scan's trace."""
+    if p.key is not None:
+        step(carry, jax.tree.map(lambda x: x[:, 0], xs))
+    swap = lambda t: jax.tree.map(lambda x: jnp.swapaxes(x, 0, 1), t)
+    carry, ys = jax.lax.scan(step, carry, swap(xs))
+    return carry, swap(ys)
 
 
 def align_actions(times: np.ndarray, delta: float) -> np.ndarray:
@@ -68,16 +80,7 @@ class PDESurrogate(nn.Module):
 
     def __call__(
         self,
-        states: Array,
-        actions: Array,
-        dscaling: Transform = Identity(),
-        hidden: Any = None,
-        reencode: Any = None,
-    ) -> ModelRollout:
-        return self.rollout(states, actions, dscaling, hidden, reencode)
-
-    def rollout(
-        self,
+        p: Scope,
         states: Array,
         actions: Array,
         dscaling: Transform = Identity(),
@@ -115,14 +118,22 @@ class PDESurrogate(nn.Module):
             reencode_np = np.asarray(reencode, bool)
         reencode_any = bool(reencode_np.any())
 
-        lstates = batched_apply(self.state_encoder, states)
-        lactions = batched_apply(self.action_encoder, actions)
-        # NOTE (measured, r3): hoisting the carry-independent input-gate
-        # projections out of the scan (the cuDNN-LSTM trick) LOSES ~35%
-        # TBPTT throughput at this model size — the 4x-larger per-step xs
-        # slice plus its saved residuals cost more HBM traffic than the tiny
-        # in-scan x-conv saves (136 vs 216 train_steps/s on v5e).  Keep the
-        # projections in-scan.
+        def encode(x):
+            return self.state_encoder(p.child("state_encoder"), x)
+
+        def decode(x):
+            return self.state_decoder(p.child("state_decoder"), x)
+
+        def cell(*args):
+            return self.cell(p.child("cell"), *args)
+
+        lstates = batched_apply(self.state_encoder, p.child("state_encoder"),
+                                states)
+        lactions = batched_apply(self.action_encoder,
+                                 p.child("action_encoder"), actions)
+        # The carry-independent input-gate projections stay inside the scan
+        # (hoisting them out, the cuDNN-LSTM trick, trades a smaller in-scan
+        # conv for a 4x larger per-step input slice; not measured on GPU).
 
         pad = t_total - tw
         if pad > 0:
@@ -142,7 +153,7 @@ class PDESurrogate(nn.Module):
         if self.mode == AUTOREG:
             carry0 = (hidden, states[:, 0])
 
-            def step(mdl, carry, xs):
+            def step(carry, xs):
                 hidden, prev = carry
                 state_gt, lstate_gt, laction, tf, re = xs
                 tfb = tf[:, None, None]
@@ -162,14 +173,14 @@ class PDESurrogate(nn.Module):
                         hidden,
                     )
 
-                if mdl.cell.needs_prev_latent or reencode_any:
+                if self.cell.needs_prev_latent or reencode_any:
                     # Two distinct detach semantics from the reference:
                     # self-forcing (TBPTT boundary) encodes the *detached*
                     # output but keeps encoder-weight gradients
                     # (training.py:86-98 -> surrogate.py:80); the plain
                     # free-run `inlast` detaches the encoder *output*
                     # (surrogate.py:103,115).
-                    raw = mdl.state_encoder(jax.lax.stop_gradient(prev))
+                    raw = encode(jax.lax.stop_gradient(prev))
                     prev_lat = jnp.where(reb, raw, jax.lax.stop_gradient(raw))
                     lstate_in = jnp.where(tfb, lstate_gt, prev_lat)
                 else:
@@ -180,22 +191,16 @@ class PDESurrogate(nn.Module):
                     lstate_in = lstate_gt
 
                 force = jnp.logical_or(tf, re)
-                hidden, outlat = mdl.cell(hidden, laction, lstate_in, force)
-                outdelta = mdl.state_decoder(outlat)
+                hidden, outlat = cell(hidden, laction, lstate_in, force)
+                outdelta = decode(outlat)
                 base = jnp.where(tfb, state_gt, prev)
-                out = base + mdl.delta * dscaling.apply(outdelta)
+                out = base + self.delta * dscaling.apply(outdelta)
                 inlat = jnp.where(tfb, lstate_gt, prev_lat)
                 return (hidden, out), (out, outdelta, outlat, inlat)
 
-            scan = nn.scan(
-                step,
-                variable_broadcast="params",
-                split_rngs={"params": False},
-                in_axes=1,
-                out_axes=1,
-            )
-            (hidden, _), (outputs, outdeltas, outlats, inlats) = scan(
-                self, carry0, (states_p, lstates_p, lactions, tf_flags, re_flags)
+            (hidden, _), (outputs, outdeltas, outlats, inlats) = _scan(
+                p, step, carry0,
+                (states_p, lstates_p, lactions, tf_flags, re_flags),
             )
             return ModelRollout(
                 outputs=outputs,
@@ -208,7 +213,7 @@ class PDESurrogate(nn.Module):
         elif self.mode == LATENT:
             carry0 = (hidden, lstates[:, 0], states[:, 0])
 
-            def step(mdl, carry, xs):
+            def step(carry, xs):
                 hidden, inlatent, prev_out = carry
                 lstate_gt, laction, tf, re = xs
                 tfb = tf[:, None, None]
@@ -220,7 +225,7 @@ class PDESurrogate(nn.Module):
                     # (surrogate.py:158-160 run the encoder on the previous
                     # outputs at every call).
                     reb = re[:, None, None]
-                    relat = mdl.state_encoder(jax.lax.stop_gradient(prev_out))
+                    relat = encode(jax.lax.stop_gradient(prev_out))
                     inlatent = jnp.where(reb, relat, inlatent)
                     hidden = jax.tree.map(
                         lambda h: jnp.where(
@@ -233,21 +238,14 @@ class PDESurrogate(nn.Module):
 
                 lstate_in = jnp.where(tfb, lstate_gt, inlatent)
                 force = jnp.logical_or(tf, re)
-                hidden, outlat = mdl.cell(hidden, laction, lstate_in, force)
-                nxtlatent = inlatent + mdl.delta * outlat
-                out = mdl.state_decoder(nxtlatent)
+                hidden, outlat = cell(hidden, laction, lstate_in, force)
+                nxtlatent = inlatent + self.delta * outlat
+                out = decode(nxtlatent)
                 inlat = jnp.where(tfb, lstate_gt, inlatent)
                 return (hidden, nxtlatent, out), (out, outlat, inlat)
 
-            scan = nn.scan(
-                step,
-                variable_broadcast="params",
-                split_rngs={"params": False},
-                in_axes=1,
-                out_axes=1,
-            )
-            (hidden, _, _), (outputs, outlats, inlats) = scan(
-                self, carry0, (lstates_p, lactions, tf_flags, re_flags)
+            (hidden, _, _), (outputs, outlats, inlats) = _scan(
+                p, step, carry0, (lstates_p, lactions, tf_flags, re_flags)
             )
             # Per-step deltas recovered from the decoded trajectory
             # (surrogate.py:197-198), mapped back through the delta scaling.
@@ -264,7 +262,7 @@ class PDESurrogate(nn.Module):
         raise ValueError(f"unknown mode {self.mode!r}")
 
 
-class EnsembleState(struct.PyTreeNode):
+class EnsembleState(PyTreeNode):
     """Stacked ensemble parameters + elite bookkeeping.
 
     ``params`` leaves have a leading member axis M.  ``elite_mask`` is a
@@ -274,7 +272,7 @@ class EnsembleState(struct.PyTreeNode):
 
     params: Any
     elite_mask: Array
-    num_elites: int = struct.field(pytree_node=False)
+    num_elites: int = field(static=True)
 
     @property
     def num_members(self) -> int:

@@ -25,7 +25,8 @@ from typing import Any, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from pdecontrol_tpu.models import nn
+from pdecontrol_tpu.models.nn import Scope
 
 Array = jax.Array
 Carry = Any
@@ -58,32 +59,25 @@ class LSTMCell(TransitionCell):
         z = jnp.zeros((batch, self.hidden_size), dtype)
         return (z, z)
 
-    def setup(self):
-        # Standard LSTM gate math (torch nn.LSTM parameterisation).
-        self.wx = nn.Dense(4 * self.hidden_size)
-        self.wh = nn.Dense(4 * self.hidden_size, use_bias=False)
-
-    def step_pre(
-        self, carry: Carry, gx: Array, lstate: Array, tf: Array
+    def __call__(
+        self, p: Scope, carry: Carry, laction: Array, lstate: Array,
+        tf: Array,
     ) -> Tuple[Carry, Array]:
+        # Standard LSTM gate math (torch nn.LSTM parameterisation).
         h, c = carry
-        b = gx.shape[0]
+        b = laction.shape[0]
         forced = lstate.reshape(b, -1)
         h = jnp.where(jnp.reshape(tf, (-1, 1)), forced, h)
 
-        gates = gx + self.wh(h)
+        gates = (nn.dense(p.child("wx"), laction.reshape(b, -1),
+                          4 * self.hidden_size)
+                 + nn.dense(p.child("wh"), h, 4 * self.hidden_size,
+                            use_bias=False))
         i, f, g, o = jnp.split(gates, 4, axis=-1)
-        c = nn.sigmoid(f) * c + nn.sigmoid(i) * jnp.tanh(g)
-        h = nn.sigmoid(o) * jnp.tanh(c)
+        c = jax.nn.sigmoid(f) * c + jax.nn.sigmoid(i) * jnp.tanh(g)
+        h = jax.nn.sigmoid(o) * jnp.tanh(c)
         out = h.reshape(b, self.schannels, self.ssize)
         return (h, c), out
-
-    def __call__(
-        self, carry: Carry, laction: Array, lstate: Array, tf: Array
-    ) -> Tuple[Carry, Array]:
-        b = laction.shape[0]
-        return self.step_pre(carry, self.wx(laction.reshape(b, -1)),
-                             lstate, tf)
 
 
 def _fused_gate_bias(schannels: int):
@@ -111,7 +105,7 @@ class CNNLSTMCell(TransitionCell):
     ``fused=True`` (default) issues the gates as ONE 4x-output-channel x-conv
     plus ONE 4x-output-channel h-conv and splits into (i, f, c, o) blocks —
     mathematically identical per output channel (each output channel of a
-    conv is an independent reduction over the same inputs), but one MXU pass
+    conv is an independent reduction over the same inputs), but two convs
     instead of eight small ones; this is the standard LSTM kernel fusion.
     ``fused=False`` keeps the eight per-gate convs for the equivalence test
     (tests/test_surrogate.py::test_fused_cnn_lstm_cell_equivalence).
@@ -127,60 +121,37 @@ class CNNLSTMCell(TransitionCell):
         z = jnp.zeros((batch, self.schannels, self.ssize), dtype)
         return (z, z)
 
-    def setup(self):
-        def conv(feats, **kw):
-            return nn.Conv(feats, (self.kernel_size,), padding="CIRCULAR",
-                           **kw)
-
-        if self.fused:
-            self.wx = conv(4 * self.schannels, use_bias=True,
-                           bias_init=_fused_gate_bias(self.schannels))
-            self.wh = conv(4 * self.schannels, use_bias=False)
-        else:
-            zeros, ones = nn.initializers.zeros, nn.initializers.ones
-            for g, binit in (("i", zeros), ("f", zeros), ("c", zeros),
-                             ("o", ones)):
-                setattr(self, f"wx{g}",
-                        conv(self.schannels, use_bias=True, bias_init=binit))
-                setattr(self, f"wh{g}", conv(self.schannels, use_bias=False))
-
-    def step_pre(
-        self, carry: Carry, gx: Array, lstate: Array, tf: Array
-    ) -> Tuple[Carry, Array]:
-        """One gate update from precomputed NWC x-gates ``gx`` [B, H, 4C]."""
-        h, c = carry
-        h = jnp.where(jnp.reshape(tf, (-1, 1, 1)), lstate, h)
-        h_ = jnp.swapaxes(h, -1, -2)
-
-        gi, gf, gc, go = jnp.split(gx + self.wh(h_), 4, axis=-1)
-        ci, cf, co = nn.sigmoid(gi), nn.sigmoid(gf), nn.sigmoid(go)
-        cc = cf * jnp.swapaxes(c, -1, -2) + ci * jnp.tanh(gc)
-        ch = co * jnp.tanh(cc)
-        return (jnp.swapaxes(ch, -1, -2), jnp.swapaxes(cc, -1, -2)), \
-            jnp.swapaxes(ch, -1, -2)
-
     def __call__(
-        self, carry: Carry, laction: Array, lstate: Array, tf: Array
+        self, p: Scope, carry: Carry, laction: Array, lstate: Array,
+        tf: Array,
     ) -> Tuple[Carry, Array]:
         x_ = jnp.swapaxes(laction, -1, -2)  # NWC for the convs
-
-        if self.fused:
-            return self.step_pre(carry, self.wx(x_), lstate, tf)
-
         h, c = carry
         h = jnp.where(jnp.reshape(tf, (-1, 1, 1)), lstate, h)
         h_ = jnp.swapaxes(h, -1, -2)
 
-        xconv = lambda g: getattr(self, f"wx{g}")(x_)
-        hconv = lambda g: getattr(self, f"wh{g}")(h_)
-        ci = nn.sigmoid(xconv("i") + hconv("i"))
-        cf = nn.sigmoid(xconv("f") + hconv("f"))
-        cc = cf * jnp.swapaxes(c, -1, -2) + ci * jnp.tanh(
-            xconv("c") + hconv("c")
-        )
-        co = nn.sigmoid(xconv("o") + hconv("o"))
-        ch = co * jnp.tanh(cc)
+        def conv(name, x, feats, bias_init=None):
+            return nn.conv_circular(
+                p.child(name), x, feats, self.kernel_size,
+                use_bias=bias_init is not None,
+                bias_init=bias_init or nn.zeros,
+            )
 
+        if self.fused:
+            gates = (conv("wx", x_, 4 * self.schannels,
+                          _fused_gate_bias(self.schannels))
+                     + conv("wh", h_, 4 * self.schannels))
+            gi, gf, gc, go = jnp.split(gates, 4, axis=-1)
+        else:
+            gi, gf, gc, go = (
+                conv(f"wx{g}", x_, self.schannels, binit)
+                + conv(f"wh{g}", h_, self.schannels)
+                for g, binit in (("i", nn.zeros), ("f", nn.zeros),
+                                 ("c", nn.zeros), ("o", nn.ones))
+            )
+        ci, cf, co = jax.nn.sigmoid(gi), jax.nn.sigmoid(gf), jax.nn.sigmoid(go)
+        cc = cf * jnp.swapaxes(c, -1, -2) + ci * jnp.tanh(gc)
+        ch = co * jnp.tanh(cc)
         return (jnp.swapaxes(ch, -1, -2), jnp.swapaxes(cc, -1, -2)), \
             jnp.swapaxes(ch, -1, -2)
 
@@ -224,9 +195,9 @@ class DelayCell(TransitionCell):
         a = jnp.zeros((batch, self.delay, self.achannels, self.asize), dtype)
         return (s, a)
 
-    @nn.compact
     def __call__(
-        self, carry: Carry, laction: Array, lstate: Array, tf: Array
+        self, p: Scope, carry: Carry, laction: Array, lstate: Array,
+        tf: Array,
     ) -> Tuple[Carry, Array]:
         sctx, actx = carry
         # Write into slot 0 then roll left: newest ends at slot -1
@@ -239,6 +210,6 @@ class DelayCell(TransitionCell):
         augmented = augmented.reshape(
             b, self.delay * (self.schannels + self.achannels), self.ssize
         )
-        out = self.fwd(augmented)
+        out = self.fwd(p.child("fwd"), augmented)
         out = out.reshape(b, self.schannels, self.ssize)
         return (sctx, actx), out

@@ -14,7 +14,7 @@ derivative, periodic boundaries, and Heun (improved Euler) time stepping
 the KS environment (Gaussian jets, ``cfg_steps`` sub-steps per control
 period, period-averaged reward).
 
-Same TPU formulation as the KS ops: stencils as circulant matrices, one fused
+Same formulation as the KS ops: stencils as circulant matrices, one fused
 ``[B, N] @ [N, 2N]`` matmul per RHS evaluation, ``lax.scan`` over sub-steps.
 """
 
@@ -25,24 +25,24 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from pdecontrol_tpu.ops import stencils
+from pdecontrol_tpu.utils.pytree import PyTreeNode, field
 
 L2CONTROL = "l2control"
 DISSIPATION = "dissipation"
 
 
-class BurgersOperators(struct.PyTreeNode):
+class BurgersOperators(PyTreeNode):
     """``deriv``: ``[N, 2N]`` — ``u_x`` (central-2 / dx) and ``u_xx``
     (central-4 / dx^2) evaluated in one matmul."""
 
     deriv: jax.Array
-    n: int = struct.field(pytree_node=False)
-    dx: float = struct.field(pytree_node=False)
-    nu: float = struct.field(pytree_node=False)
-    precision: jax.lax.Precision = struct.field(
-        pytree_node=False, default=jax.lax.Precision.HIGHEST
+    n: int = field(static=True)
+    dx: float = field(static=True)
+    nu: float = field(static=True)
+    precision: jax.lax.Precision = field(
+        static=True, default=jax.lax.Precision.HIGHEST
     )
 
     @classmethod

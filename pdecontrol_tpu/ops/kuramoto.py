@@ -1,4 +1,4 @@
-"""Kuramoto–Sivashinsky right-hand side and time integration, TPU-native.
+"""Kuramoto–Sivashinsky right-hand side and time integration.
 
 Physics reproduced from the reference solver
 (``/root/reference/pdegym/kuramoto/kuramoto.py:78-129``):
@@ -15,12 +15,13 @@ on a periodic domain discretised with
     (kuramoto.py:83-90), and the per-sub-step reward accumulated *before*
     each sub-step and averaged over the period (kuramoto.py:82-96).
 
-TPU-first design: all stencils are materialised as circulant matrices and the
-four derivative fields are produced by two fused matmuls per RHS evaluation
-(``[B, N] @ [N, 2N]``), so a batch of environments rides the MXU.  The
-``cfg_steps`` sub-step loop is a ``lax.scan`` (compiled once, no Python).  A
-fused Pallas kernel that keeps ``u`` resident in VMEM across the whole
-control period lives in ``pdecontrol_tpu.ops.pallas_ks``.
+All stencils are materialised as circulant matrices and the four derivative
+fields are produced by two matmuls per RHS evaluation (``[B, N] @ [N, 2N]``),
+so a batch of environments is one batched product.  The ``cfg_steps``
+sub-step loop is a ``lax.scan`` (compiled once, no Python).  A fused GPU
+kernel for the control period (Pallas through Triton) was measured slower
+than this path on an H100 and removed (``PERF.md``); its source is kept,
+unimported, in ``records/ks_control_period_triton.py``.
 """
 
 from __future__ import annotations
@@ -31,16 +32,16 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from pdecontrol_tpu.ops import stencils
+from pdecontrol_tpu.utils.pytree import PyTreeNode, field
 
 # Reward objectives (see pdegym/kuramoto/kuramoto.py:64-73).
 L2CONTROL = "l2control"
 DISSIPATION = "dissipation"
 
 
-class KSOperators(struct.PyTreeNode):
+class KSOperators(PyTreeNode):
     """Precomputed spectral-free FD operators for one grid resolution.
 
     ``central``: ``[N, 2N]`` — columns ``[:N]`` give ``u_xx`` (6th-order
@@ -52,10 +53,10 @@ class KSOperators(struct.PyTreeNode):
     central: jax.Array
     upwind: jax.Array
     # Static (non-pytree) metadata.
-    n: int = struct.field(pytree_node=False)
-    dx: float = struct.field(pytree_node=False)
-    precision: jax.lax.Precision = struct.field(
-        pytree_node=False, default=jax.lax.Precision.HIGHEST
+    n: int = field(static=True)
+    dx: float = field(static=True)
+    precision: jax.lax.Precision = field(
+        static=True, default=jax.lax.Precision.HIGHEST
     )
 
     @classmethod

@@ -1,4 +1,4 @@
-"""Finite-difference stencils as circulant matrices (MXU-friendly).
+"""Finite-difference stencils as circulant matrices.
 
 The reference solver (``/root/reference/pdegym/kuramoto/kuramoto.py:23-27,118-129``)
 applies 1-D periodic finite-difference stencils with ``scipy.ndimage.convolve1d``.
@@ -10,10 +10,9 @@ store the **effective cross-correlation taps** directly:
 
 and materialise each stencil as an ``N x N`` circulant matrix ``D`` so that a
 batch of fields ``U`` of shape ``[..., N]`` is differentiated with a single
-matrix multiply ``U @ D.T`` — one MXU op instead of a scalar gather loop.
-This is the TPU-native formulation: at reference scale (``N = 64``) a fused
-``[B, N] @ [N, kN]`` matmul keeps the systolic array busy across the whole
-vectorised environment batch.
+matrix multiply ``U @ D.T`` — one batched product instead of a scalar
+gather loop: at reference scale (``N = 64``) a fused ``[B, N] @ [N, kN]``
+matmul covers the whole vectorised environment batch.
 
 Coefficient values are standard finite-difference tables (math constants, also
 listed in the reference at ``kuramoto.py:24-27`` and ``phyloss.py:39-40``).

@@ -2,9 +2,10 @@
 
 The reference has no distributed backend at all — its only inter-process
 surface is gym's AsyncVectorEnv subprocess pipes (SURVEY §2.5).  The
-TPU-native equivalent for scaling past one host is ``jax.distributed``:
-one process per host, each owning its local chips, with a coordinator
-service for device enumeration and XLA collectives riding ICI/DCN.
+JAX equivalent for scaling past one host is ``jax.distributed``: one
+process per host, each owning its local GPUs, with a coordinator service
+for device enumeration and XLA collectives (NCCL between GPUs).  One
+process drives every GPU of a host, so a single-host run never needs it.
 
 This module is the single opt-in entry point (``--coordinator_address``
 etc. on the MBRL CLI).  Single-process runs never touch it.
@@ -47,8 +48,9 @@ def initialize(
     """Opt-in ``jax.distributed.initialize`` wrapper.
 
     On the CPU backend (tests / dry runs) cross-process collectives need
-    the Gloo implementation — select it before backend init.  On TPU the
-    plugin's own collectives are used and the flag is irrelevant.
+    the Gloo implementation — select it before backend init.  On GPUs XLA
+    runs its collectives through NCCL and the flag is irrelevant.  The
+    multi-process path is tested on the CPU only.
     """
     if jax.config.jax_platforms == "cpu" or local_device_count is not None:
         try:

@@ -185,9 +185,9 @@ def _learn_config(run_dir: str, data_parallel: int, model_parallel: int):
 def child_learn(process_id: int, num_processes: int, port: int, outdir: str,
                 local_devices: int = 4) -> None:
     """Stage 6 child: the FULL product ``learn()`` under the multi-process
-    runtime (VERDICT r4 missing #4 — stage 5 was one step deep; the
+    runtime (stage 5 is one step deep; here the
     controller's primary-only metrics/checkpoint/plot I/O and pipelined
-    flush had never run under 2 real processes).
+    flush run under 2 real processes).
 
     Each process gets a DIFFERENT run_dir: the primary-only I/O rule then
     becomes falsifiable — a non-primary process that writes anything leaves

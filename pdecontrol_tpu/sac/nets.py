@@ -13,7 +13,9 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+
+from pdecontrol_tpu.models import nn
+from pdecontrol_tpu.models.nn import Scope
 
 Array = jax.Array
 
@@ -21,12 +23,9 @@ LOG_SIG_MAX = 2.0
 LOG_SIG_MIN = -20.0
 EPSILON = 1e-6
 
-_kernel_init = nn.initializers.xavier_uniform()
 
-
-def _dense(features: int, name: str) -> nn.Dense:
-    return nn.Dense(features, kernel_init=_kernel_init,
-                    bias_init=nn.initializers.zeros, name=name)
+def _dense(p: Scope, name: str, x: Array, features: int) -> Array:
+    return nn.dense(p.child(name), x, features, kernel_init=nn.xavier_uniform)
 
 
 class GaussianPolicy(nn.Module):
@@ -36,21 +35,21 @@ class GaussianPolicy(nn.Module):
     action_scale: float = 1.0
     action_bias: float = 0.0
 
-    @nn.compact
-    def __call__(self, obs: Array) -> Tuple[Array, Array]:
+    def __call__(self, p: Scope, obs: Array) -> Tuple[Array, Array]:
         b = obs.shape[0]
         x = obs.reshape(b, -1)
-        x = nn.relu(_dense(self.hidden, "linear1")(x))
-        x = nn.relu(_dense(self.hidden, "linear2")(x))
-        mean = _dense(self.achannels * self.asize, "mean")(x)
-        log_std = _dense(self.achannels * self.asize, "log_std")(x)
+        x = jax.nn.relu(_dense(p, "linear1", x, self.hidden))
+        x = jax.nn.relu(_dense(p, "linear2", x, self.hidden))
+        mean = _dense(p, "mean", x, self.achannels * self.asize)
+        log_std = _dense(p, "log_std", x, self.achannels * self.asize)
         log_std = jnp.clip(log_std, LOG_SIG_MIN, LOG_SIG_MAX)
         shape = (b, self.achannels, self.asize)
         return mean.reshape(shape), log_std.reshape(shape)
 
-    def sample(self, obs: Array, key: Array) -> Tuple[Array, Array, Array]:
+    def sample(self, p: Scope, obs: Array,
+               key: Array) -> Tuple[Array, Array, Array]:
         """Reparameterised sample -> (action, log_prob [B, 1], det_mean)."""
-        mean, log_std = self(obs)
+        mean, log_std = self(p, obs)
         std = jnp.exp(log_std)
         noise = jax.random.normal(key, mean.shape, mean.dtype)
         x_t = mean + std * noise
@@ -75,16 +74,16 @@ class QNetwork(nn.Module):
 
     hidden: int = 256
 
-    @nn.compact
-    def __call__(self, obs: Array, action: Array) -> Tuple[Array, Array]:
+    def __call__(self, p: Scope, obs: Array,
+                 action: Array) -> Tuple[Array, Array]:
         b = obs.shape[0]
         xu = jnp.concatenate([obs.reshape(b, -1), action.reshape(b, -1)], axis=1)
 
-        x1 = nn.relu(_dense(self.hidden, "linear1")(xu))
-        x1 = nn.relu(_dense(self.hidden, "linear2")(x1))
-        x1 = _dense(1, "linear3")(x1)
+        x1 = jax.nn.relu(_dense(p, "linear1", xu, self.hidden))
+        x1 = jax.nn.relu(_dense(p, "linear2", x1, self.hidden))
+        x1 = _dense(p, "linear3", x1, 1)
 
-        x2 = nn.relu(_dense(self.hidden, "linear4")(xu))
-        x2 = nn.relu(_dense(self.hidden, "linear5")(x2))
-        x2 = _dense(1, "linear6")(x2)
+        x2 = jax.nn.relu(_dense(p, "linear4", xu, self.hidden))
+        x2 = jax.nn.relu(_dense(p, "linear5", x2, self.hidden))
+        x2 = _dense(p, "linear6", x2, 1)
         return x1, x2

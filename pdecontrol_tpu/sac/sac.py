@@ -8,7 +8,7 @@ loss against the *updated* critic, optional automatic entropy tuning, and a
 Polyak soft target update every ``target_update_interval`` updates
 (sac.py:129-130).  Everything is a pure function over a ``SACState`` pytree;
 ``n_updates`` chained updates run as one ``lax.scan`` with on-device batch
-sampling — the TPU replacement for the reference's DataLoader loop
+sampling — the on-device replacement for the reference's DataLoader loop
 (mbrl.py:554-564).
 """
 
@@ -19,9 +19,9 @@ from typing import Any, Dict, NamedTuple, Tuple
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 
 from pdecontrol_tpu.sac.nets import GaussianPolicy, QNetwork
+from pdecontrol_tpu.utils.pytree import PyTreeNode, field
 
 Array = jax.Array
 
@@ -44,7 +44,7 @@ class SACConfig(NamedTuple):
     reward_scale: float = 1.0
 
 
-class SACState(struct.PyTreeNode):
+class SACState(PyTreeNode):
     policy_params: Any
     critic_params: Any
     target_params: Any
@@ -53,7 +53,7 @@ class SACState(struct.PyTreeNode):
     log_alpha: Array
     alpha_opt: Any
     updates: Array
-    config: SACConfig = struct.field(pytree_node=False)
+    config: SACConfig = field(static=True)
 
 
 class SAC:

@@ -4,7 +4,7 @@ The ECC'24 paper compares MBPO against a model-free SAC agent (README.md:19);
 the reference repo exposes an SB3-compatible env for that but no trainer.
 This module provides the end-to-end on-device baseline: jitted
 collect-then-update iterations over the batched env — the framework's
-"minimum slice" (env + agent + replay all on TPU).
+"minimum slice" (env + agent + replay all on the device).
 
     python -m pdecontrol_tpu.sac.train --total_timesteps 50000 \
         --learning_starts 5000 --num_envs 10 --updates_per_step 1
@@ -24,6 +24,7 @@ import jax.numpy as jnp
 from pdecontrol_tpu.data import replay as R
 from pdecontrol_tpu.mbrl.transform_sets import ControllerTransforms
 from pdecontrol_tpu.sac.sac import SAC, SACConfig
+from pdecontrol_tpu.utils import runtime
 from pdecontrol_tpu.utils.logging import MetricsLogger
 
 
@@ -229,6 +230,7 @@ def main(argv=None) -> int:
         jax.config.update("jax_platforms", args.platform)
     if args.debug_nans:
         jax.config.update("jax_debug_nans", True)
+    runtime.setup("sac")
     logger = MetricsLogger(args.run_dir, config=vars(args))
     trainer = SACTrainer(args)
     trainer.learn(logger)

@@ -1,10 +1,9 @@
 """Background renderer for plots and npz artifacts.
 
 The eval block's host-side work — matplotlib rendering, compressed npz
-writes, wandb image/table uploads — took ~2.2 s per eval iteration on
-the 50k MBRL run (232 s total, measured via the ``t_eval`` field) while
-the device sat idle.  None of it feeds back into training, so it is
-submitted to ONE worker thread here and overlaps the device execution
+writes, wandb image/table uploads — would otherwise leave the device
+idle (visible in the ``t_eval`` field).  None of it feeds back into
+training, so it is submitted to ONE worker thread here and overlaps the device execution
 of the following iterations: the main thread spends its time blocked in
 ``device_get``/dispatch waits (GIL released), which is exactly when the
 worker can render.

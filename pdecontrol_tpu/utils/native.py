@@ -1,9 +1,9 @@
 """ctypes bindings for the native (C++) host-side KS integrator.
 
-Builds ``native/ks_solver.cc`` on first use (g++ -O3 -shared) into
-``native/libks_solver.so`` and exposes numpy-friendly wrappers.  Used as an
-independent golden oracle and as the honest single-core host baseline in
-``bench.py``'s secondary report.
+Builds ``native/ks_solver.cc`` on first use (g++ -O3 -shared) into the
+gitignored ``native/build/libks_solver.so`` — rebuilt whenever the source is
+newer — and exposes numpy-friendly wrappers.  Used as an independent golden
+oracle and as the single-core host baseline in ``bench.py``.
 """
 
 from __future__ import annotations
@@ -17,12 +17,13 @@ import numpy as np
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _SRC = os.path.join(_ROOT, "native", "ks_solver.cc")
-_LIB = os.path.join(_ROOT, "native", "libks_solver.so")
+_LIB = os.path.join(_ROOT, "native", "build", "libks_solver.so")
 
 _lib: Optional[ctypes.CDLL] = None
 
 
 def _build() -> None:
+    os.makedirs(os.path.dirname(_LIB), exist_ok=True)
     base = ["g++", "-O3", "-shared", "-fPIC", "-o", _LIB, _SRC]
     try:
         subprocess.run(base[:2] + ["-march=native"] + base[2:], check=True,

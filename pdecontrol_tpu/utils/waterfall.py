@@ -1,7 +1,6 @@
 """Wall-time waterfall over a run's metrics.jsonl: attribute EVERY second.
 
-The round-3 receipt had ~137 s of the retrain phase unattributed (VERDICT
-r3 weak #2).  This tool closes the books: per-iteration wall time is taken
+This tool closes the books: per-iteration wall time is taken
 from the committed ``time`` field deltas (which sum to the run's total by
 construction), bucketed into warmup / steady / retrain / eval iterations,
 and the retrain bucket is broken down into its logged sub-fields
@@ -103,7 +102,7 @@ def analyze(path: str) -> Dict:
                 phases["t_surrogate"] - sum(sur_sub.values()), 1),
             # within the fit call but outside the prep/dispatch/pull
             # timers: the host early-stopping bookkeeping (~0 with
-            # fuse_fit).  Needs t_fit_total (round-4+ receipts).
+            # fuse_fit).  Needs the t_fit_total field.
             "fit_internal_residual_s": round(
                 sur_fit_total - fit_accounted, 1) if sur_fit_total else None,
         },

@@ -1,8 +1,7 @@
 #!/bin/bash
-# The paper's dissipation+power objective through the FULL online loop
-# (VERDICT r4 item 2).  The reference's objective quirk (kuramoto.py:72)
-# makes the dissipation integrand reachable only via objective="" —
-# preserved here (envs/kuramoto.py legacy_objective).  Everything else is
+# The paper's dissipation+power objective through the FULL online loop.
+# The reference's objective quirk (kuramoto.py:72) makes the dissipation
+# integrand reachable only via objective="" — preserved here (envs/kuramoto.py legacy_objective).  Everything else is
 # the flagship ECC'24 configuration (mbpo_ks.sh).
 #
 # Model-free comparison arm:

@@ -1,7 +1,6 @@
 #!/bin/bash
-# Controlled intervention on the latent family's online gap (VERDICT r4
-# item 6).  Round-3 diagnosis (results/RESULTS.md §7): the
-# encode->latent-step->decode round trip UNDERFITS in the low-data online
+# Controlled intervention on the latent family's online gap.  Diagnosis
+# (results/RESULTS.md §7): the encode->latent-step->decode round trip UNDERFITS in the low-data online
 # regime (open-loop MSE ~100x the AutoReg flagship's).  The single most
 # plausible lever is therefore the per-retrain optimization budget: the
 # flagship config gives every family 50-250 steps with patience 5 per

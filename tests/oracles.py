@@ -3,7 +3,7 @@
 Implements exactly the scheme of
 ``/root/reference/pdegym/kuramoto/kuramoto.py`` (pre-flipped FD tables fed to
 ``scipy.ndimage.convolve1d(mode="wrap")``, RK4, per-sub-step reward) in plain
-NumPy — the bar the TPU solver must match to <=1e-6 relative L2 over a full
+NumPy — the bar the JAX solver must match to <=1e-6 relative L2 over a full
 episode (float64).
 """
 

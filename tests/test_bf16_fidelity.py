@@ -1,9 +1,9 @@
-"""bf16 fast-mode attractor gate: machinery tests (CPU).
+"""Reduced-precision attractor gate: machinery tests (CPU).
 
-The real fidelity receipt runs on the TPU chip
-(``python -m pdecontrol_tpu.evaluation.bf16_gate``) and is stored at
-``results/bf16_fidelity.json``; these tests pin the gate's statistics
-plumbing and pass/fail logic so the receipt is trustworthy.
+The real fidelity verdict is taken on the GPU
+(``python -m pdecontrol_tpu.evaluation.bf16_gate``); these tests pin the
+gate's statistics plumbing and pass/fail logic so the verdict is
+trustworthy.
 """
 
 import copy
@@ -13,12 +13,12 @@ import jax.numpy as jnp
 import numpy as np
 
 from pdecontrol_tpu.envs.kuramoto import KuramotoSivashinsky
-from pdecontrol_tpu.evaluation.bf16_gate import compare, rollout_stats
+from pdecontrol_tpu.evaluation.bf16_gate import compare, rollout_stats, run_gate
+from pdecontrol_tpu.ops.kuramoto import ks_control_period
 
 
 def _tiny_stats(seed=0):
-    env = KuramotoSivashinsky.create(n=32, cfg_steps=10, dtype=jnp.float32,
-                                     solver="xla")
+    env = KuramotoSivashinsky.create(n=32, cfg_steps=10, dtype=jnp.float32)
     return rollout_stats(env, jax.random.PRNGKey(seed), batch=8,
                          transient=3, periods=6)
 
@@ -52,3 +52,19 @@ def test_compare_pass_and_fail_logic():
     spec[weak] *= 10.0
     tail["spectrum"] = spec
     assert compare(s, tail, rtol_means=0.02, rtol_spec=0.10)["ok"]
+
+
+def test_run_gate_with_candidate_solver():
+    """The gate runs the caller's candidate solver: the plain solver passes
+    against itself exactly, and a solver with a 5% energy bias fails."""
+    env = KuramotoSivashinsky.create(n=32, cfg_steps=10, dtype=jnp.float32)
+    kw = dict(batch=8, transient=3, periods=6, env=env)
+    same = run_gate(ks_control_period, **kw)
+    assert same["ok"] and same["spectrum"]["max_rel_err"] == 0.0
+
+    def biased(ops, u, phi, dt, cfg_steps, objective):
+        u, r = ks_control_period(ops, u, phi, dt, cfg_steps, objective)
+        return 1.05 * u, r
+
+    bad = run_gate(biased, **kw)
+    assert not bad["ok"] and not bad["mean_energy"]["ok"]

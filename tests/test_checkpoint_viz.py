@@ -111,7 +111,7 @@ def test_checkpoint_failure_is_not_silent(tmp_path):
     from pdecontrol_tpu.utils.checkpoint import CheckpointManager
 
     ckpt = CheckpointManager(str(tmp_path / "ck"))
-    # A lambda is not serializable by orbax StandardSave -> the worker job
+    # A lambda cannot be pulled to the host as an array -> the worker job
     # fails; wait() must surface it.
     ckpt.save(0, {"bad": lambda: None})
     with pytest.raises(Exception):

@@ -1,19 +1,21 @@
-"""Env-level solver-backend equivalence: the ``solver=`` product modes.
-
-The headline bench number must be attainable through the product env API,
-so `KuramotoSivashinsky.step` with ``solver="pallas"``/``"pallas_packed"``
-must match the XLA path at fp32 round-off for BOTH objectives (the pallas
-kernels run in interpret mode on the CPU test backend)."""
+"""Env-level wiring of the KS solver: ``KuramotoSivashinsky.step`` is the
+plain control period applied to the jets' forcing, for any batch shape, and
+the reset pool's burn-in is the same unforced period repeated."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pdecontrol_tpu.envs.kuramoto import EnvState, KuramotoSivashinsky
+from pdecontrol_tpu.envs.kuramoto import (
+    EnvState,
+    KuramotoSivashinsky,
+    make_reset_pool,
+)
+from pdecontrol_tpu.ops.kuramoto import ks_control_period
 
 
-def _env(solver, objective):
+def _env(objective):
     # legacy_objective=False so the objective string is honored literally
     # (the quirk path is covered by test_solver.py).
     return KuramotoSivashinsky.create(
@@ -21,101 +23,64 @@ def _env(solver, objective):
         objective=objective,
         legacy_objective=False,
         dtype=jnp.float32,
-        solver=solver,
-        pallas_interpret=True,
     )
 
 
-def _state(env, batch=8, seed=0):
+def _state(env, batch_shape=(8,), seed=0):
     key = jax.random.PRNGKey(seed)
-    u = jax.random.uniform(key, (batch, env.n), minval=-1.0, maxval=1.0,
-                           dtype=jnp.float32)
-    return EnvState(u=u, step=jnp.zeros((batch,), jnp.int32),
+    u = jax.random.uniform(key, batch_shape + (env.n,), minval=-1.0,
+                           maxval=1.0, dtype=jnp.float32)
+    return EnvState(u=u, step=jnp.zeros(batch_shape, jnp.int32),
                     key=jax.random.PRNGKey(seed + 1))
 
 
-@pytest.mark.parametrize("solver", ["pallas", "pallas_packed"])
 @pytest.mark.parametrize("objective", ["l2control", "dissipation"])
-def test_env_step_solver_matches_xla(solver, objective):
-    ref_env = _env("xla", objective)
-    env = _env(solver, objective)
-    state = _state(ref_env)
-    key = jax.random.PRNGKey(42)
-    actions = jax.random.uniform(key, (3, 8, 1, ref_env.num_jets),
-                                 minval=-1.0, maxval=1.0, dtype=jnp.float32)
-
-    ref_state, test_state = state, state
-    for t in range(actions.shape[0]):
-        ref_state, ref_out = ref_env.step(ref_state, actions[t])
-        test_state, test_out = env.step(test_state, actions[t])
-        np.testing.assert_allclose(
-            np.asarray(test_out.obs), np.asarray(ref_out.obs),
-            rtol=3e-5, atol=3e-6,
-        )
-        np.testing.assert_allclose(
-            np.asarray(test_out.reward), np.asarray(ref_out.reward),
-            rtol=3e-5, atol=3e-6,
-        )
-        np.testing.assert_array_equal(np.asarray(test_out.truncated),
-                                      np.asarray(ref_out.truncated))
+def test_env_step_matches_plain_period(objective):
+    env = _env(objective)
+    state = _state(env)
+    action = jax.random.uniform(jax.random.PRNGKey(42),
+                                (8, 1, env.num_jets), minval=-1.0,
+                                maxval=1.0, dtype=jnp.float32)
+    new, out = jax.jit(env.step)(state, action)
+    u, r = ks_control_period(env.ops, state.u, env.action_to_phi(action),
+                             env.dt, env.cfg_steps, objective)
+    np.testing.assert_array_equal(np.asarray(out.obs[:, 0]), np.asarray(u))
+    np.testing.assert_array_equal(np.asarray(new.u), np.asarray(u))
+    np.testing.assert_array_equal(np.asarray(out.reward), np.asarray(r))
+    np.testing.assert_array_equal(np.asarray(new.step), 1)
 
 
-def test_env_packed_odd_batch_falls_back():
-    """Odd flat batches can't lane-pack; the dispatch silently uses the
-    general fused kernel instead (shape-static decision)."""
-    env = _env("pallas_packed", "l2control")
-    ref_env = _env("xla", "l2control")
-    state = _state(env, batch=5)
-    action = jnp.full((5, 1, env.num_jets), 0.3, jnp.float32)
+@pytest.mark.parametrize("batch_shape", [(), (2, 3)])
+def test_env_step_batch_shapes(batch_shape):
+    """Unbatched and multi-axis batches give the same rows as a flat
+    batch."""
+    env = _env("dissipation")
+    state = _state(env, batch_shape, seed=7)
+    action = jnp.full(batch_shape + (1, env.num_jets), -0.2, jnp.float32)
     _, out = env.step(state, action)
-    _, ref_out = ref_env.step(state, action)
-    np.testing.assert_allclose(np.asarray(out.obs), np.asarray(ref_out.obs),
-                               rtol=3e-5, atol=3e-6)
+    assert out.obs.shape == batch_shape + (1, env.n)
+    assert out.reward.shape == batch_shape
+    flat = EnvState(u=state.u.reshape(-1, env.n),
+                    step=state.step.reshape(-1), key=state.key)
+    _, flat_out = env.step(flat, action.reshape(-1, 1, env.num_jets))
+    np.testing.assert_allclose(np.asarray(out.obs).reshape(-1, 1, env.n),
+                               np.asarray(flat_out.obs), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(np.asarray(out.reward).reshape(-1),
+                               np.asarray(flat_out.reward), rtol=1e-6,
+                               atol=1e-7)
 
 
-def test_env_unbatched_pallas_step():
-    env = _env("pallas", "dissipation")
-    ref_env = _env("xla", "dissipation")
-    key = jax.random.PRNGKey(7)
-    u = jax.random.uniform(key, (env.n,), minval=-1.0, maxval=1.0,
-                           dtype=jnp.float32)
-    state = EnvState(u=u, step=jnp.zeros((), jnp.int32),
-                     key=jax.random.PRNGKey(8))
-    action = jnp.full((1, env.num_jets), -0.2, jnp.float32)
-    _, out = env.step(state, action)
-    _, ref_out = ref_env.step(state, action)
-    assert out.reward.shape == ()
-    np.testing.assert_allclose(np.asarray(out.obs), np.asarray(ref_out.obs),
-                               rtol=3e-5, atol=3e-6)
-    np.testing.assert_allclose(np.asarray(out.reward),
-                               np.asarray(ref_out.reward),
-                               rtol=3e-5, atol=3e-6)
-
-
-def test_create_rejects_unknown_solver_and_f64():
-    with pytest.raises(ValueError):
-        KuramotoSivashinsky.create(solver="bogus")
-    with pytest.raises(ValueError):
-        KuramotoSivashinsky.create(solver="pallas", dtype=jnp.float64)
-
-
-def test_packed_kernel_dissipation_matches_xla():
-    """Kernel-level check for the new dissipation path of the packed
-    kernel (interpret mode)."""
-    from pdecontrol_tpu.ops.kuramoto import KSOperators, ks_control_period
-    from pdecontrol_tpu.ops.pallas_ks_packed import ks_control_period_packed
-
-    ops = KSOperators.create(64, 22.0, dtype=jnp.float32)
-    key = jax.random.PRNGKey(3)
-    u = jax.random.uniform(key, (8, 64), minval=-1, maxval=1,
-                           dtype=jnp.float32)
-    phi = 0.2 * jnp.cos(2 * jnp.pi * jnp.arange(64) / 64)[None, :].astype(
-        jnp.float32
-    ).repeat(8, 0)
-    u_ref, r_ref = ks_control_period(ops, u, phi, 1e-3, 20, "dissipation")
-    u_pk, r_pk = ks_control_period_packed(ops, u, phi, 1e-3, 20,
-                                          "dissipation", interpret=True)
-    np.testing.assert_allclose(np.asarray(u_pk), np.asarray(u_ref),
-                               rtol=3e-5, atol=3e-6)
-    np.testing.assert_allclose(np.asarray(r_pk), np.asarray(r_ref),
-                               rtol=3e-5, atol=3e-6)
+def test_reset_pool_transient_matches_plain_periods():
+    """The reset pool's burn-in equals repeated plain unforced periods from
+    the same ICs."""
+    env = KuramotoSivashinsky.create(n=32, cfg_steps=10).replace(
+        transient_time=0.05)
+    key = jax.random.PRNGKey(9)
+    pool = make_reset_pool(env, key, pool_size=4, chains=4)
+    u = env.sample_ic(key, (4,))
+    for _ in range(env.transient_periods):
+        u, _ = ks_control_period(env.ops, u, jnp.zeros_like(u), env.dt,
+                                 env.cfg_steps, "l2control")
+    np.testing.assert_allclose(np.asarray(pool), np.asarray(u),
+                               rtol=1e-6, atol=1e-7)

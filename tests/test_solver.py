@@ -1,4 +1,4 @@
-"""Golden numerics: TPU-native KS/Burgers solvers vs the NumPy/SciPy oracle."""
+"""Golden numerics: the JAX KS/Burgers solvers vs the NumPy/SciPy oracle."""
 
 import jax
 import jax.numpy as jnp
@@ -101,7 +101,7 @@ def test_full_episode_equivalence():
     (even scipy linked against different BLAS) diverge exponentially from
     summation-order noise, so a free-running trajectory comparison measures
     Lyapunov growth, not scheme fidelity.  The rigorous gate is therefore
-    *shadowing*: at every one of the 400 agent steps the TPU solver is
+    *shadowing*: at every one of the 400 agent steps the JAX solver is
     restarted from the oracle's state and must reproduce the oracle's next
     control period (250 RK4 sub-steps) to <=1e-9 relative L2 — far inside
     the 1e-6 bar — for the whole episode, including both reward objectives.
